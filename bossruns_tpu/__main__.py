@@ -1,6 +1,6 @@
 """CLI entry point: dispatches the 4 experiment modes from one TOML.
 
-Equivalent of /root/reference/boss/BOSS.py: live/simulation x RUNS/AEONS is
+Equivalent of the reference's boss/BOSS.py: live/simulation x RUNS/AEONS is
 selected by presence of simulation.fq (sim) and general.ref (RUNS vs AEONS).
 
     python -m bossruns_tpu --toml config.toml
@@ -13,7 +13,7 @@ import time
 
 from .config import Config
 
-logger = logging.getLogger("boss_tpu")
+logger = logging.getLogger("bossruns")
 
 
 def main(argv=None) -> int:
@@ -22,8 +22,10 @@ def main(argv=None) -> int:
     # unset). After this jax.devices() is the global device list and the
     # [tpu] mesh shards may span hosts; file outputs happen on process 0.
     from .parallel.distributed import init_from_env
+    from .utils.compile_cache import configure_compile_cache
 
     init_from_env()
+    configure_compile_cache()
 
     # the decision path (benefit sums, threshold scan) runs in f64 — see
     # RunsConfig.benefit_dtype; without x64 it silently falls back to f32

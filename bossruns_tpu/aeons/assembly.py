@@ -30,7 +30,7 @@ import numpy as np
 from ..io.paf import revcomp
 from .pool import LinkStore, Sequence, SequencePool
 
-logger = logging.getLogger("boss_tpu")
+logger = logging.getLogger("bossruns")
 
 
 def _end_edges(links: dict) -> dict[tuple[str, str], list]:

@@ -25,7 +25,7 @@ from . import kmer
 from .classify import (Classified, classify, containment_coords_role,
                        find_trim_coords, multiline_containments)
 
-logger = logging.getLogger("boss_tpu")
+logger = logging.getLogger("bossruns")
 
 
 class Sequence:

@@ -20,7 +20,7 @@ import numpy as np
 
 from .ava import PoolIndex, find_overlaps
 
-logger = logging.getLogger("boss_tpu")
+logger = logging.getLogger("bossruns")
 
 BLOCK_MIN = 100
 END_WINDOW = 500

@@ -20,7 +20,7 @@ from ..models.runs_sim import MU, ReadCache
 from .assembly import initial_assembly
 from .core import BossAeons
 
-logger = logging.getLogger("boss_tpu")
+logger = logging.getLogger("bossruns")
 
 
 class BossAeonsSim(BossAeons):
@@ -90,7 +90,7 @@ class BossAeonsSim(BossAeons):
             layout = build_layout(contigs.seqdict(), min_len=500)
             # noisy-vs-noisy mapping needs denser seeds: the reference's
             # AEONS sim mapper uses k=13, w=5 (boss/mapper.py:47-48).
-            # Host/device seeding chosen by measured fit (make_aligner).
+            # Host/device seeding chosen by genome size (make_aligner).
             self._decide_aligner = make_aligner(layout, k=13, w=5, min_votes=2)
             self._decide_key = key
         aligner = self._decide_aligner

@@ -7,10 +7,10 @@ environment, so the baseline walks the SAME minimizer index on the host
 (aligner/host_seed.py, vectorised NumPy + the native C k-mer scan) and
 extends with the SAME native banded-DP (native/banded_align.cpp), pinned to
 4 threads end-to-end like the reference's pool. Seeding is bit-identical to
-the device kernels (tests/test_host_seed.py), so CPU and TPU paths differ
+the device kernels (tests/test_host_seed.py), so host and device paths differ
 ONLY in where the seeding compute runs — exactly the comparison the BENCH
 aligner lines normalise against (``vs_baseline`` = cpu_reads_per_s /
-tpu_reads_per_s denominator).
+device_reads_per_s denominator).
 
 Drop-in for TpuAligner: same constructor shape, same map_sequences contract.
 """
@@ -27,7 +27,7 @@ from .host_seed import host_seed_topn
 from .index import K, MinimizerIndex, W, build_index_layout, load_or_build_index
 from .seed import NCAND
 
-logger = logging.getLogger("boss_tpu")
+logger = logging.getLogger("bossruns")
 
 
 class CpuAligner(TpuAligner):

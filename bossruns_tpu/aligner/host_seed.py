@@ -3,13 +3,12 @@
 Two consumers:
 
   * ``CpuAligner`` (cpu_baseline.py) — the honest CPU baseline the BENCH
-    aligner lines are normalised against (VERDICT r3: the reference maps with
-    mappy, minimap2's C library, over a 4-worker thread pool,
-    /root/reference/boss/mapper.py:69-108; mappy is not installable here, so
-    the stand-in walks the SAME minimizer index on host and extends with the
-    same native banded_align.cpp).
-  * small-batch call sites where a ~33 ms device round trip dwarfs the
-    seeding compute (AEONS per-batch decisions, live chunk batches).
+    aligner lines are normalised against (the reference maps with mappy,
+    minimap2's C library, over a 4-worker thread pool, boss/mapper.py:69-108;
+    mappy is not available here, so the stand-in walks the SAME minimizer
+    index on host and extends with the same native banded_align.cpp).
+  * small-batch call sites where a device round trip dwarfs the seeding
+    compute (AEONS per-batch decisions, live chunk batches).
 
 The algorithms mirror seed.py's ``_seed_topn_jit`` / ``_seed_candidates_jit``
 step for step — same (k, w, hash) minimizer selection, same anchor budget,

@@ -1,7 +1,7 @@
 """Minimizer index of the reference genome (host build, device resident).
 
-TPU-native replacement for minimap2's .mmi index (reference delegates index
-construction to mappy, /root/reference/boss/mapper.py:12-23). Canonical
+Replacement for minimap2's .mmi index (reference delegates index
+construction to mappy, boss/mapper.py:12-23). Canonical
 (k=15, w=10 — the map-ont preset's parameters) minimizers of the concatenated
 padded genome axis are computed with vectorised NumPy, then stored as three
 sorted device arrays:
@@ -370,7 +370,7 @@ def _memo_put(memo_key: tuple, out: tuple) -> None:
     global _memo_evictions
     if len(_SEQ_SCAN_CACHE) >= _SEQ_SCAN_MAX:
         if _memo_evictions == 0:
-            logging.getLogger("boss_tpu").info(
+            logging.getLogger("bossruns").info(
                 f"minimizer-scan memo full ({_SEQ_SCAN_MAX}); evicting LRU half"
             )
         _memo_evictions += 1

@@ -13,7 +13,7 @@ from pathlib import Path
 
 import numpy as np
 
-logger = logging.getLogger("boss_tpu")
+logger = logging.getLogger("bossruns")
 
 _NATIVE_DIR = Path(__file__).resolve().parents[2] / "native"
 _LIB_PATH = _NATIVE_DIR / "libbossnative.so"

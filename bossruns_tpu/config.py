@@ -1,83 +1,145 @@
 """TOML configuration system, schema-compatible with the reference.
 
-Same sections/keys/defaults as /root/reference/boss/config.py:24-69 so a
+Same sections/keys/defaults as the reference's boss/config.py:24-69 so a
 reference user's TOML works unchanged; adds a [tpu] section for device-mesh
 options that have no reference counterpart. The template generator and the
 readfish-TOML cross-validation (region name must match the experiment name,
 config.py:163-183) are preserved; full readfish Conf validation is gated on
 readfish being importable.
+
+Sections are plain dataclasses; ``BossConfig.from_dict`` validates a parsed
+TOML (unknown sections or keys and wrongly typed values are errors).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 import sys
 import tomllib
+import types
+import typing
+from dataclasses import dataclass, field
 from datetime import datetime
 from pathlib import Path
-
-from pydantic import BaseModel, Field, ValidationError
 
 from .utils.misc import init_logger
 
 
-class GeneralConfig(BaseModel):
-    name: str = Field(default="boss", description="Experiment name. Used as output prefix and to match readfish region name")
-    ref: str | None = Field(default=None, description="Reference file (fasta or None). Not specifying a file switches operation to AEONS")
-    mmi: str | None = Field(default=None, description="Index of reference (will be built if not provided)")
-    toml_readfish: str | None = Field(default=None, description="TOML config file for readfish. Not required for simulations.")
-    wait: int = Field(default=60, description="Waiting time between updates in live version")
-    barcodes: list[str] | None = Field(default=None, description="List of barcodes in the experiment")
+def _opt(default, description: str):
+    """A config key: its default and the description the template prints."""
+    return field(default=default, metadata={"description": description})
 
 
-class LiveConfig(BaseModel):
-    device: str | None = Field(default=None, description="Position on sequencing device")
-    host: str = Field(default="localhost", description="Host of sequencing device")
-    port: int = Field(default=9502, description="Port of sequencing device")
-    data_wait: int = Field(default=100, description="Wait for X Mb of data before first strategy update")
+@dataclass
+class GeneralConfig:
+    name: str = _opt("boss", "Experiment name. Used as output prefix and to match readfish region name")
+    ref: str | None = _opt(None, "Reference file (fasta or None). Not specifying a file switches operation to AEONS")
+    mmi: str | None = _opt(None, "Index of reference (will be built if not provided)")
+    toml_readfish: str | None = _opt(None, "TOML config file for readfish. Not required for simulations.")
+    wait: int = _opt(60, "Waiting time between updates in live version")
+    barcodes: list[str] | None = _opt(None, "List of barcodes in the experiment")
 
 
-class OptionalConfig(BaseModel):
-    reject_refs: str | None = Field(default=None, description="Comma-separated list of headers in reference from which to always reject")
-    ploidy: int = Field(default=1, description="Ploidy level")
-    lowcov: int = Field(default=10, description="[debug] Minimum coverage")
-    temperature: int = Field(default=60, description="[debug] Temperature")
-    min_seq_len: int = Field(default=2500, description="[debug] Minimum sequence length")
-    min_contig_len: int = Field(default=10_000, description="[debug] Minimum contig length")
-    min_s1: int = Field(default=200, description="[debug] Minimum S1")
-    min_map_len: int = Field(default=2000, description="[debug] Minimum mapping length")
-    tetra: bool = Field(default=True, description="[debug] Switch tetranucleotide frequency tests")
-    filter_repeats: bool = Field(default=False, description="[debug] Switch repeat filtering")
-    bucket_threshold: int = Field(default=5, description="[debug] At which coverage to switch on the strategy in a bucket")
-    resume: bool = Field(default=False, description="Resume from the checkpoint in out_<name>/checkpoint (live + sim)")
+@dataclass
+class LiveConfig:
+    device: str | None = _opt(None, "Position on sequencing device")
+    host: str = _opt("localhost", "Host of sequencing device")
+    port: int = _opt(9502, "Port of sequencing device")
+    data_wait: int = _opt(100, "Wait for X Mb of data before first strategy update")
 
 
-class SimulationConfig(BaseModel):
-    fq: str | None = Field(default=None, description="Input fastq file")
-    batchsize: int = Field(default=4000, description="Number of reads per update")
-    maxb: int = Field(default=400, description="Maximum number of batches")
-    binit: int = Field(default=5, description="Initial batch size")
-    dumptime: int = Field(default=200000000, description="Time (in units of psudo-sequencing time) between writing output fastq files")
-    paf_full: str | None = Field(default=None, description="Mappings (PAF) of full-length reads for fast sampling")
-    paf_trunc: str | None = Field(default=None, description="Mappings (PAF) of truncated reads for fast sampling")
-    accept_unmapped: bool = Field(default=False, description="Accept unmapped reads")
+@dataclass
+class OptionalConfig:
+    reject_refs: str | None = _opt(None, "Comma-separated list of headers in reference from which to always reject")
+    ploidy: int = _opt(1, "Ploidy level")
+    lowcov: int = _opt(10, "[debug] Minimum coverage")
+    temperature: int = _opt(60, "[debug] Temperature")
+    min_seq_len: int = _opt(2500, "[debug] Minimum sequence length")
+    min_contig_len: int = _opt(10_000, "[debug] Minimum contig length")
+    min_s1: int = _opt(200, "[debug] Minimum S1")
+    min_map_len: int = _opt(2000, "[debug] Minimum mapping length")
+    tetra: bool = _opt(True, "[debug] Switch tetranucleotide frequency tests")
+    filter_repeats: bool = _opt(False, "[debug] Switch repeat filtering")
+    bucket_threshold: int = _opt(5, "[debug] At which coverage to switch on the strategy in a bucket")
+    resume: bool = _opt(False, "Resume from the checkpoint in out_<name>/checkpoint (live + sim)")
 
 
-class TpuConfig(BaseModel):
-    """TPU-native additions (no reference counterpart)."""
+@dataclass
+class SimulationConfig:
+    fq: str | None = _opt(None, "Input fastq file")
+    batchsize: int = _opt(4000, "Number of reads per update")
+    maxb: int = _opt(400, "Maximum number of batches")
+    binit: int = _opt(5, "Initial batch size")
+    dumptime: int = _opt(200000000, "Time (in units of psudo-sequencing time) between writing output fastq files")
+    paf_full: str | None = _opt(None, "Mappings (PAF) of full-length reads for fast sampling")
+    paf_trunc: str | None = _opt(None, "Mappings (PAF) of truncated reads for fast sampling")
+    accept_unmapped: bool = _opt(False, "Accept unmapped reads")
 
-    mesh_genome: int = Field(default=1, description="Device-mesh shards along the genome axis")
-    mesh_barcode: int = Field(default=1, description="Device-mesh shards along the barcode axis")
-    dtype: str = Field(default="float32", description="Device compute dtype for scores/benefits")
-    use_device_aligner: bool = Field(default=True, description="Align with the on-device seed-and-extend kernel instead of precomputed PAFs")
+
+@dataclass
+class TpuConfig:
+    """Device-mesh additions (no reference counterpart)."""
+
+    mesh_genome: int = _opt(1, "Device-mesh shards along the genome axis")
+    mesh_barcode: int = _opt(1, "Device-mesh shards along the barcode axis")
+    dtype: str = _opt("float32", "Device compute dtype for scores/benefits")
+    use_device_aligner: bool = _opt(True, "Align with the on-device seed-and-extend kernel instead of precomputed PAFs")
 
 
-class BossConfig(BaseModel):
-    general: GeneralConfig = GeneralConfig()
-    live: LiveConfig = LiveConfig()
-    optional: OptionalConfig = OptionalConfig()
-    simulation: SimulationConfig = SimulationConfig()
-    tpu: TpuConfig = TpuConfig()
+class ConfigError(ValueError):
+    """A TOML that does not fit the schema."""
+
+
+def _type_ok(value, tp) -> bool:
+    """isinstance against the annotations used above (TOML values are
+    already typed, so nothing is coerced; a bool is not an int)."""
+    origin = typing.get_origin(tp)
+    if origin in (typing.Union, types.UnionType):
+        return any(_type_ok(value, a) for a in typing.get_args(tp))
+    if tp is type(None):
+        return value is None
+    if origin is list:
+        (item,) = typing.get_args(tp)
+        return isinstance(value, list) and all(_type_ok(v, item) for v in value)
+    if tp is int:
+        return isinstance(value, int) and not isinstance(value, bool)
+    return isinstance(value, tp)
+
+
+def _section_from_dict(cls, data, where: str):
+    if not isinstance(data, dict):
+        raise ConfigError(f"[{where}] must be a table, got {type(data).__name__}")
+    hints = typing.get_type_hints(cls)
+    for key, value in data.items():
+        if key not in hints:
+            raise ConfigError(f"[{where}] unknown key '{key}' (known: {', '.join(hints)})")
+        if not _type_ok(value, hints[key]):
+            raise ConfigError(
+                f"[{where}] {key} = {value!r}: expected {hints[key]}, got {type(value).__name__}"
+            )
+    return cls(**data)
+
+
+@dataclass
+class BossConfig:
+    general: GeneralConfig = field(default_factory=GeneralConfig)
+    live: LiveConfig = field(default_factory=LiveConfig)
+    optional: OptionalConfig = field(default_factory=OptionalConfig)
+    simulation: SimulationConfig = field(default_factory=SimulationConfig)
+    tpu: TpuConfig = field(default_factory=TpuConfig)
+
+    @classmethod
+    def from_dict(cls, conf: dict) -> "BossConfig":
+        """Validated config from a parsed TOML; raises ConfigError."""
+        sections = typing.get_type_hints(cls)
+        unknown = sorted(set(conf) - set(sections))
+        if unknown:
+            raise ConfigError(f"unknown section(s) {unknown} (known: {', '.join(sections)})")
+        return cls(**{
+            name: _section_from_dict(sections[name], data, name)
+            for name, data in conf.items()
+        })
 
 
 class Config:
@@ -90,8 +152,8 @@ class Config:
             try:
                 with Path(path).open("rb") as f:
                     conf = tomllib.load(f)
-                self.args = BossConfig.model_validate(conf)
-            except ValidationError as e:
+                self.args = BossConfig.from_dict(conf)
+            except ConfigError as e:
                 print("Invalid configuration:")
                 print(e)
                 sys.exit(1)
@@ -107,7 +169,7 @@ class Config:
         Path("./logs").mkdir(parents=True, exist_ok=True)
         self.logfile = f"./logs/{stamp}_boss.log"
         init_logger(self.logfile)
-        logging.getLogger("boss_tpu").info(self.args.model_dump())
+        logging.getLogger("bossruns").info(dataclasses.asdict(self.args))
 
         # device TEST dry-runs without readfish, so nothing to cross-validate
         if self.args.live.device and self.args.live.device != "TEST":
@@ -116,7 +178,7 @@ class Config:
 
     @staticmethod
     def _parse_toml_arg(argv=None) -> str:
-        parser = argparse.ArgumentParser(prog="boss-tpu")
+        parser = argparse.ArgumentParser(prog="bossruns")
         parser.add_argument("--toml", type=str, required=True, help="TOML configuration file")
         return parser.parse_args(argv).toml
 
@@ -136,7 +198,7 @@ class Config:
         try:
             from readfish._config import Conf  # type: ignore
         except ImportError:
-            logging.getLogger("boss_tpu").info(
+            logging.getLogger("bossruns").info(
                 "readfish not importable; skipping readfish TOML validation"
             )
             return 0
@@ -150,18 +212,18 @@ class Config:
     def write_template(path: Path = Path("config_template.toml")) -> None:
         col = 30
         out = ""
-        for section_name, section in BossConfig.model_fields.items():
-            out += f"\n[{section_name}]"
-            for key, field in section.annotation.model_fields.items():  # type: ignore
-                d = field.default
+        for section in dataclasses.fields(BossConfig):
+            out += f"\n[{section.name}]"
+            for key in dataclasses.fields(section.default_factory):  # type: ignore[arg-type]
+                d = key.default
                 if d is None:  # TOML has no null: ship unset keys commented out
-                    kv = f"# {key} ="
+                    kv = f"# {key.name} ="
                 elif isinstance(d, bool):
-                    kv = f"{key} = {str(d).lower()}"
+                    kv = f"{key.name} = {str(d).lower()}"
                 elif isinstance(d, str):
-                    kv = f'{key} = "{d}"'
+                    kv = f'{key.name} = "{d}"'
                 else:
-                    kv = f"{key} = {d}"
-                out += f"\n{kv:<{col}}  # {field.description}"
+                    kv = f"{key.name} = {d}"
+                out += f"\n{kv:<{col}}  # {key.metadata['description']}"
             out += "\n"
         path.write_text(out)

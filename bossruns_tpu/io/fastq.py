@@ -14,7 +14,7 @@ from dataclasses import dataclass, field
 from pathlib import Path
 
 
-logger = logging.getLogger("boss_tpu")
+logger = logging.getLogger("bossruns")
 
 _CH_RE = re.compile(r"\sch=([0-9]+)")
 _BC_RE = re.compile(r"barcode=(unclassified|barcode([0-9]+))")

@@ -18,7 +18,7 @@ import numpy as np
 
 from .fastq import parse_barcode
 
-logger = logging.getLogger("boss_tpu")
+logger = logging.getLogger("bossruns")
 
 
 def _cache_fresh(path: Path, cache: Path) -> bool:

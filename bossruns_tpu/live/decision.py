@@ -23,7 +23,7 @@ from pathlib import Path
 
 import numpy as np
 
-logger = logging.getLogger("boss_tpu")
+logger = logging.getLogger("bossruns")
 
 STRAND_CONVERTER = {1: 0, -1: 1}  # readfish strand -> boss strand index
 
@@ -120,7 +120,7 @@ class ContigWatcher:
 
     The AEONS mode rewrites contigs/aeons.fa; the readfish side then rebuilds
     its aligner index (dynamic_readfish.py:113-139). The index build is
-    supplied by the caller (mappy or the TPU aligner).
+    supplied by the caller (mappy or the in-repo aligner).
     """
 
     def __init__(self, fasta_path: str | Path, rebuild_fn):

@@ -20,7 +20,7 @@ import logging
 from dataclasses import dataclass
 from pathlib import Path
 
-logger = logging.getLogger("boss_tpu")
+logger = logging.getLogger("bossruns")
 
 #: live chunks are ~400 bases; accept any alignment spanning at least this
 #: much target (mappy reports short hits too — the decision plane should
@@ -59,7 +59,7 @@ class AlignmentData:
 
 
 class TpuMapperPlugin:
-    """readfish Aligner plugin backed by the in-repo TPU aligner."""
+    """readfish Aligner plugin backed by the in-repo aligner."""
 
     def __init__(self, fasta: str | Path | None = None, aligner=None,
                  min_len: int = LIVE_MIN_LEN, min_contig_len: int = 500):

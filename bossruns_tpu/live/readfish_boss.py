@@ -27,7 +27,7 @@ from pathlib import Path
 from .conf import Action, Chemistry, Condition, RFConf
 from .decision import ContigWatcher, Decision, StrategyStore, make_decision
 
-logger = logging.getLogger("boss_tpu")
+logger = logging.getLogger("bossruns")
 
 #: duplex overrides are only granted when the channel's previous decision was
 #: a genuine accept (reference DISALLOWED_DUPLEX_DECISIONS)

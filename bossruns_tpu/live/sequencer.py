@@ -12,13 +12,14 @@ launch (live.py:248-249).
 from __future__ import annotations
 
 import logging
+import os
 import subprocess
 import sys
 import time
 import tomllib
 from pathlib import Path
 
-logger = logging.getLogger("boss_tpu")
+logger = logging.getLogger("bossruns")
 
 #: all six variants the reference scans (boss/live.py:226), including the
 #: nonstandard .gzip spellings some MinKNOW builds emit
@@ -148,6 +149,17 @@ class LiveRun:
         return None
 
     @staticmethod
+    def readfish_command(toml: str, device: str, name: str) -> tuple[list[str], dict[str, str]]:
+        """(argv, environment) of the readfish_boss child process.
+
+        The child is pinned to JAX's CPU backend: its aligner is the host
+        seeding path, and a JAX process that opened the accelerator would
+        reserve most of the memory the engine process holds there."""
+        script = Path(__file__).parent / "readfish_boss.py"
+        env = dict(os.environ, JAX_PLATFORMS="cpu")
+        return [sys.executable, str(script), toml, device, name], env
+
+    @staticmethod
     def launch_readfish(toml: str, device: str, name: str, dry: bool = False) -> subprocess.Popen | None:
         """Spawn the BOSS-modified readfish entry point in the background
         (live.py:238-268). device == 'TEST' short-circuits for tests.
@@ -164,14 +176,13 @@ class LiveRun:
                 f"readfish_boss already running for {device} (pid {existing}); not launching again"
             )
             return None
-        script = Path(__file__).parent / "readfish_boss.py"
         stamp = time.strftime("%Y%m%d-%H%M%S")
         Path("./logs").mkdir(exist_ok=True)
         logfile = open(f"./logs/{stamp}_readfish.log", "w")
-        cmd = [sys.executable, str(script), toml, device, name]
+        cmd, env = LiveRun.readfish_command(toml, device, name)
         if dry:
             logger.info(f"dry launch: {' '.join(cmd)}")
             logfile.close()
             return None
         logger.info(f"launching readfish: {' '.join(cmd)}")
-        return subprocess.Popen(cmd, stdout=logfile, stderr=subprocess.STDOUT)
+        return subprocess.Popen(cmd, stdout=logfile, stderr=subprocess.STDOUT, env=env)

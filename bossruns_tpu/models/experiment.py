@@ -6,7 +6,7 @@ sequencer's fastq_pass directory for new files, align the new reads, update
 the device GenomeState, and republish the strategy npz for the readfish
 process. Alignment is pluggable: any callable mapping {rid: seq} to
 (PafRecords, best_rows) works — the on-device seed-and-extend aligner
-(bossruns_tpu/aligner) is the TPU-native default.
+(bossruns_tpu/aligner) is the default.
 """
 from __future__ import annotations
 
@@ -27,7 +27,7 @@ from .layout import GenomeLayout, build_layout
 from .runs import ReadBatch, RunsConfig, RunsEngine, normalize_state
 from .runs_sim import load_reference_contigs
 
-logger = logging.getLogger("boss_tpu")
+logger = logging.getLogger("bossruns")
 
 
 class AbundanceTracker:

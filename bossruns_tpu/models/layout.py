@@ -1,8 +1,8 @@
 """Static genome layout: contigs -> one padded, shardable device axis.
 
 The reference keeps one Python ``Contig`` object per reference sequence with
-ragged per-contig numpy arrays (/root/reference/boss/runs/reference.py:18-118)
-and loops over them on every update. A TPU-native design wants *one* dense,
+ragged per-contig numpy arrays (the reference's boss/runs/reference.py:18-118)
+and loops over them on every update. A device-resident design wants *one* dense,
 statically-shaped axis: all accepted contigs are concatenated onto a single
 "site" axis, each padded to a multiple of CHUNK sites so that
 

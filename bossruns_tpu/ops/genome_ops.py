@@ -55,9 +55,9 @@ def windowed_sums_fwd(cs, w, seg_end, rows, cs_at_seg_end=None):
     seg_end: [N] exclusive segment bound; rows: [N] iota.
     Equals bn.move_sum(x[::-1], w, min_count=1)[::-1] per segment.
 
-    Implemented as a dynamic shift (cs[r+w]) corrected at segment boundaries
-    with a static gather (cs[seg_end]) — traced-index gathers over the whole
-    axis are ~20x slower on TPU than dynamic_slice.
+    Implemented as a dynamic shift (cs[r+w], a dynamic_slice copy)
+    corrected at segment boundaries with a static gather (cs[seg_end]),
+    instead of a traced-index gather over the whole axis.
     """
     n = rows.shape[0]
     pad = jnp.broadcast_to(cs[..., -1:], cs.shape[:-1] + (n,))
@@ -104,9 +104,8 @@ def expected_benefit(scores_ds, approx_ccl_ds, seg_start, seg_end, mu_ds: int = 
     cs = _csum(scores_ds)  # [..., n+1]
     # the 22 window sums share the one cumsum via dynamic-slice shifts; the
     # segment-boundary corrections gather cs[seg_end]/cs[seg_start] ONCE and
-    # are reused by every window. (A stacked [11, n] traced-index gather was
-    # tried and measured ~20 ms SLOWER at 8 Mb: full-axis gathers run ~40k
-    # elem/ms on this TPU while dynamic_slice is a copy.)
+    # are reused by every window (instead of a stacked [11, n] traced-index
+    # gather).
     cs_end = jnp.take(cs, seg_end, axis=-1)
     cs_start = jnp.take(cs, seg_start, axis=-1)
 
@@ -142,7 +141,7 @@ def fhat_pointmass(read_starts, row_valid, n_windows: int, alpha: float = 1.0, p
     csum = jnp.sum(read_starts)
     denom = 2.0 * n_windows * alpha + csum
     if alpha == 1.0:
-        # B(1, z) = 1/z — the scalar lgamma lowering costs ~5ms/call on TPU
+        # B(1, z) = 1/z: closed form, no lgamma
         beta_num = 1.0 / ((2.0 * n_windows - 1.0) + csum)
         beta_denom = jnp.asarray(1.0 / (2.0 * n_windows - 1.0), dtype)
     else:
@@ -161,51 +160,22 @@ def fhat_pointmass(read_starts, row_valid, n_windows: int, alpha: float = 1.0, p
 
 # -------------------------------------------------------- threshold scan ----
 
-def _pow2_i32(e):
-    """Exact 2.0**e as f32 for integer e in [-126, 127] (exponent-field
-    construction; no transcendental rounding)."""
-    return jax.lax.bitcast_convert_type(
-        ((e + 127) << 23).astype(jnp.int32), jnp.float32
-    )
-
-
 def frexp_abs_exponent(x, nbins: int):
     """|numpy.frexp exponent| of positive floats, clamped to [0, nbins-1].
 
-    Exact IEEE semantics (no log2 rounding at bin edges). Values below the
-    representable range go to the top bin — their benefit is ~0 and never
-    near the threshold.
-
-    The f64 path deliberately avoids 64-bit bitcasts: TPU implements f64 as
-    a float-float pair and its compiler rejects s64 bitcast-convert in the
-    X64-removal pass. Instead the exponent is read from the f32 downcast and
-    then corrected against exact power-of-two bounds, which reproduces
-    numpy.frexp exactly on CPU and to emulation precision on TPU.
+    Exact IEEE semantics (no log2 rounding at bin edges): the biased
+    exponent field is read straight from the bits. Subnormals go to the top
+    bin — their benefit is ~0 and never near the threshold.
     """
     if x.dtype == jnp.float32:
-        bits = jax.lax.bitcast_convert_type(x, jnp.int32)
-        biased = (bits >> 23) & 0xFF
-        e = biased - 126
-        a = jnp.abs(e.astype(jnp.int32))
-        a = jnp.where(biased == 0, nbins - 1, a)  # subnormal
-        return jnp.minimum(a, nbins - 1)
-    if x.dtype != jnp.float64:
+        itype, shift, mask, bias = jnp.int32, 23, 0xFF, 126
+    elif x.dtype == jnp.float64:
+        itype, shift, mask, bias = jnp.int64, 52, 0x7FF, 1022
+    else:
         raise TypeError(x.dtype)
-    x32 = x.astype(jnp.float32)
-    b1 = (jax.lax.bitcast_convert_type(x32, jnp.int32) >> 23) & 0xFF
-    small = b1 == 0  # below f32-normal range: rescale into it
-    xs = jnp.where(small, x * (2.0**64), x)  # pow2 multiply: exact in f64
-    xs32 = xs.astype(jnp.float32)
-    b2 = (jax.lax.bitcast_convert_type(xs32, jnp.int32) >> 23) & 0xFF
-    es = b2 - 126  # frexp exponent of xs, up to f32 rounding at bin edges
-    # f32 rounding can misplace values within half an ulp of 2^k by one bin;
-    # correct with exact f64 comparisons against the true bounds
-    hi = _pow2_i32(es).astype(x.dtype)        # 2^es
-    lo = _pow2_i32(es - 1).astype(x.dtype)    # 2^(es-1)
-    es = es + jnp.where(xs >= hi, 1, 0) - jnp.where(xs < lo, 1, 0)
-    e = es - jnp.where(small, 64, 0)
-    a = jnp.abs(e)
-    a = jnp.where(b2 == 0, nbins - 1, a)  # below 2^-190: effectively zero
+    biased = (jax.lax.bitcast_convert_type(x, itype) >> shift) & mask
+    a = jnp.abs(biased - bias).astype(jnp.int32)
+    a = jnp.where(biased == 0, nbins - 1, a)  # subnormal
     return jnp.minimum(a, nbins - 1)
 
 
@@ -230,8 +200,8 @@ def bin_benefit(benefit, fhat, norm, nbins: int):
     norm_safe = jnp.where(norm > 0, norm, 1.0)
     idx = frexp_abs_exponent(jnp.where(nz, b / norm_safe, 1.0), nbins)
     nzf = nz.astype(dtype)
-    # counts are integers: scatter in int32 (half the f64-emulation scatter
-    # cost) and cast — exact and order-invariant either way
+    # counts are integers: scatter in int32 and cast — exact and
+    # order-invariant either way
     counts = jnp.zeros(nbins, jnp.int32).at[idx].add(
         nz.astype(jnp.int32)).astype(dtype)
     fsum = jnp.zeros(nbins, dtype).at[idx].add(f * nzf)

@@ -6,10 +6,10 @@ mutual information between the next observation and the genotype).
 
 Reference semantics: /root/reference/boss/runs/sequences.py:460-549
 (calc_posterior + calc_score). The reference precomputes a ~3.3 GB 6-D lookup
-table (sequences.py:347-393) because per-site Python math is slow; on TPU we
-recompute every site densely each update. Moreover the score admits a closed
-form that removes the reference's [sites, symbols, genotypes] intermediate
-entirely: with p the posterior, phi[b,g] = P(obs b | genotype g) and
+table (sequences.py:347-393) because per-site Python math is slow; on the
+device we recompute every site densely each update. Moreover the score
+admits a closed form that removes the reference's [sites, symbols,
+genotypes] intermediate entirely: with p the posterior, phi[b,g] = P(obs b | genotype g) and
 sum_b phi[b,g] = 1,
 
     score = sum_g p[g] * k[g]  -  sum_b q[b] * log q[b]
@@ -17,8 +17,8 @@ sum_b phi[b,g] = 1,
     q     = p @ phi.T                            (next-observation probability)
 
 so the whole genome scores reduce to two small matmuls ([N,B]x[B,G] for the
-log-likelihood, [N,G]x[G,B] for q) plus elementwise ops — MXU/VPU friendly,
-fully fused by XLA, and trivially shardable along the site axis N.
+log-likelihood, [N,G]x[G,B] for q) plus elementwise ops — fused by XLA, and
+trivially shardable along the site axis N.
 
 Counts are clipped at 990 like the reference's phi_stored indexing guard
 (sequences.py:493).
@@ -58,10 +58,12 @@ def site_log_posterior(counts, ref_base, tables: ScoreTables):
     Returns log_post [..., G].
     """
     c = jnp.clip(counts[..., : tables.len_b], 0, COUNT_CLIP).astype(tables.dtype)
-    # Precision.HIGHEST: TPU matmuls otherwise truncate inputs to bf16, which
-    # loses integer counts > 256 and ~3 digits of log_phi — fatal for a score
-    # that is a small difference of O(1) entropy terms (the strategy feedback
-    # loop amplifies the error into divergent accept/reject trajectories).
+    # Precision.HIGHEST: a default-precision f32 matmul may run in TF32 on
+    # the GPU (10-bit mantissa inputs, ~3 decimal digits): the clipped
+    # counts stay exact, but log_phi loses most of its digits — fatal for a
+    # score that is a small difference of O(1) entropy terms (the strategy
+    # feedback loop amplifies the error into divergent accept/reject
+    # trajectories).
     ll = jnp.dot(
         c,
         tables.log_phi,
@@ -100,17 +102,17 @@ def prior_score(model: ObservationModel, dtype=jnp.float64) -> tuple[float, floa
 
 
 def site_scores_t(counts_t, ref_base, tables: ScoreTables):
-    """(score, entropy) with genome-on-lanes layout: counts_t [..., B, N].
+    """(score, entropy) with the genome axis last: counts_t [..., B, N].
 
-    TPU tiling puts the LAST axis on the 128-wide vector lanes; a [N, 5]
-    layout uses 5/128 lanes, this transposed form uses them fully (measured
-    ~10x on an 8.4M-site genome). Same math as site_scores.
+    The long site axis is last (contiguous), so elementwise and reduction
+    work runs along it instead of along a 5-wide minor axis. Same math as
+    site_scores.
     """
     dtype = tables.dtype
     c = jnp.clip(counts_t[..., : tables.len_b, :], 0, COUNT_CLIP).astype(dtype)
     # ll[..., g, n] = sum_b log_phi[b, g] * c[..., b, n]
-    # HIGHEST precision: see site_log_posterior — bf16-truncated inputs corrupt
-    # the tiny score differences this pipeline thresholds on (TPU-only effect).
+    # HIGHEST precision: see site_log_posterior — TF32-truncated inputs
+    # corrupt the tiny score differences this pipeline thresholds on.
     ll = jnp.einsum(
         "bg,...bn->...gn",
         tables.log_phi,
@@ -118,11 +120,10 @@ def site_scores_t(counts_t, ref_base, tables: ScoreTables):
         preferred_element_type=dtype,
         precision=jax.lax.Precision.HIGHEST,
     )
-    # prior selection via one-hot matmul, NOT a gather: XLA materialises the
-    # gather as an [N, G_t] temp whose tiny trailing axis tile-pads 25x in
-    # HBM (15.8 GB at a 33 Mb genome — an OOM). The matmul keeps the genome
-    # axis on the vector lanes; with HIGHEST precision the 0/1 products
-    # select exactly, so results are bit-identical to the gather.
+    # prior selection via one-hot matmul, NOT a gather: a gather makes an
+    # [N, G_t] temp with a tiny trailing axis, while the matmul keeps the
+    # genome axis last; with HIGHEST precision the 0/1 products select
+    # exactly, so results are bit-identical to the gather.
     onehot = (
         ref_base[..., None, :] == jnp.arange(4, dtype=ref_base.dtype)[:, None]
     ).astype(dtype)  # [..., 4, N]

@@ -1,12 +1,12 @@
 """Float64 NumPy oracle implementing the reference BOSS-RUNS math.
 
-This module is the conformance baseline for the TPU kernels: a compact,
+This module is the conformance baseline for the device kernels: a compact,
 vectorised re-implementation of the *mathematics* of the reference pipeline
 (posterior/entropy score, S_mu / expected-benefit window sums, read-start
 posterior, exponent-binned threshold scan) in float64 on CPU.
 
 It serves two purposes:
-  * unit tests compare every TPU kernel against it (value closeness for f32,
+  * unit tests compare every device kernel against it (value closeness for f32,
     decision-level identity for the strategy masks), and
   * bench.py times it as the "CPU BOSS-RUNS" stand-in baseline, since the
     actual reference cannot run here (its mappy/bottleneck C deps are absent).
@@ -298,7 +298,7 @@ def full_update(engine, state_np: dict, batch_np: dict, approx_ccl, time_cost,
     G, Gd = lay.G_pad, lay.Gd_pad
     tiny = np.finfo(np.float64).tiny
 
-    cov0 = state_np["coverage"]  # [NB, 5, G] genome-on-lanes layout, uint16
+    cov0 = state_np["coverage"]  # [NB, 5, G] genome axis last, uint16
     # expand match runs + explicit observations like the device step does
     # (quality masking already happened host-side when the batch was built)
     inc = np.zeros(cov0.size, np.int64)

@@ -5,7 +5,7 @@ documented reference defects (docs/PARITY.md "Deliberate deviations" 1-3).
 BASELINE.md's parity clause, however, is "bit-identical strategy decisions vs
 the reference" — this module is the reference-EXACT mask computer, including
 its bugs, so masks can be compared bit-for-bit to what the reference stack
-would write (VERDICT r2 item 3). Each quirk, with its source:
+would write. Each quirk, with its source:
 
   Q1  ubar0 from benefit: update_wrapper builds ``smu_adj`` from ``benefit``
       (/root/reference/boss/runs/core.py:178-186 — `adjust_length(...,
@@ -296,7 +296,7 @@ class ReferenceQuirkOracle:
         The elementwise difference of the two mask sets is the POSITIVELY
         PREDICTED Q3/Q3b disagreement set: both pipelines share every input,
         so any cell where they differ is attributable to the layout drift
-        and nothing else (VERDICT r4 #6)."""
+        and nothing else."""
         for c in self.filt.values():
             c.scores = self._scores(c)
             self._modify_scores(c)

@@ -7,8 +7,8 @@ the process-level plumbing that turns the explicit shard_map SPMD step
 
   * ``init_from_env`` joins the JAX distributed runtime from environment
     variables, after which ``jax.devices()`` is the GLOBAL device list and a
-    Mesh built over it spans all hosts. On TPU pods the runtime autodetects
-    topology; on CPU/GPU fleets the coordinator address is explicit.
+    Mesh built over it spans all hosts. The coordinator address, process
+    count and process id are always given explicitly.
   * every process runs the same host program (same config, same seed, same
     batch order — the standard SPMD single-program contract); arrays the
     step consumes are created with process-local data only for the shards
@@ -29,7 +29,7 @@ import os
 
 import numpy as np
 
-logger = logging.getLogger("boss_tpu")
+logger = logging.getLogger("bossruns")
 
 _initialized = False
 

@@ -1,6 +1,6 @@
 """Multi-chip sharding of the RUNS update step: explicit SPMD via shard_map.
 
-TPU-native scaling design (SURVEY.md §2.3/§5): the genome is the long axis.
+Scaling design (SURVEY.md §2.3/§5): the genome is the long axis.
 All per-site and per-ds-row state shards as contiguous chunk blocks over the
 mesh axis ``g`` (the adaptive-sampling analogue of context/sequence
 parallelism); the barcode axis optionally shards over ``b`` (multi-sample
@@ -362,8 +362,8 @@ class ShardedRunsEngine(RunsEngine):
         off = halo - row0
         # per-window dynamic-slice shifts of the halo-extended cumsum + TWO
         # boundary gathers shared by all windows (same reasoning as
-        # ops/genome_ops.expected_benefit: a stacked [11*Gdl] traced-index
-        # gather measured ~20 ms slower at 8 Mb single-chip). cs[r + d] for
+        # ops/genome_ops.expected_benefit: instead of a stacked [11*Gdl]
+        # traced-index gather). cs[r + d] for
         # the local rows is ext[:, halo + d : halo + d + Gdl] — w <= halo
         # keeps every slice inside the exchanged halos.
         cs_end = jnp.take(ext, seg_e_l + off, axis=-1)       # cs[seg_end[r]]

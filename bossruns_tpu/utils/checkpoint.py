@@ -15,7 +15,7 @@ from pathlib import Path
 
 import numpy as np
 
-logger = logging.getLogger("boss_tpu")
+logger = logging.getLogger("bossruns")
 
 
 def save_checkpoint(out_dir: str | Path, state, host_state: dict, tag: str = "state",

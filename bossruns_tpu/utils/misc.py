@@ -10,7 +10,7 @@ import numpy as np
 
 
 def init_logger(logfile: str | Path | None = None, level=logging.INFO) -> logging.Logger:
-    logger = logging.getLogger("boss_tpu")
+    logger = logging.getLogger("bossruns")
     logger.setLevel(level)
     if not logger.handlers:
         fmt = logging.Formatter("%(asctime)s %(message)s")

@@ -1,4 +1,4 @@
-"""Aligner benchmark: TPU reads/s vs the CPU-baseline aligner, both passes.
+"""Aligner benchmark: device-seeding reads/s vs the CPU-baseline aligner.
 
 Builds the bench-scale genome (8 Mb, 3 contigs), simulates noisy reads
 (3% sub / 2% ins / 2% del — ONT-like), and times the two passes the
@@ -6,7 +6,7 @@ live-alignment simulation makes per batch: full-length mapping and mu=400
 truncated-prefix mapping (the decision path), with the k13/w5 profile
 runs_sim uses.
 
-vs_baseline on each line = tpu_reads_per_s / cpu_reads_per_s, where the CPU
+vs_baseline on each line = device_reads_per_s / cpu_reads_per_s, where the CPU
 baseline (aligner/cpu_baseline.CpuAligner) is the honest mappy stand-in:
 host seeding over the SAME minimizer index + the SAME native banded DP,
 4 worker threads like the reference's mapper pool (boss/mapper.py:83-84).
@@ -25,8 +25,8 @@ import numpy as np
 
 def _time_pair(base, subj, seqs, kw, trials):
     """Median seconds for (baseline, subject), trials INTERLEAVED so host
-    load / pool weather hits both sides of the ratio equally — sequential
-    blocks made vs_baseline swing with whatever else shared the machine."""
+    load hits both sides of the ratio equally — sequential blocks made
+    vs_baseline swing with whatever else shared the machine."""
     base.map_sequences(seqs, **kw)  # warm (loads/caches kernels)
     rec = subj.map_sequences(seqs, **kw)
     tb, ts = [], []
@@ -42,15 +42,12 @@ def _time_pair(base, subj, seqs, kw, trials):
 
 def main(n_reads: int = 2000, trials: int = 3, deadline_s: float | None = None):
     """deadline_s: soft wall-clock bound (seconds from now) — the DEVICE
-    pass measurements (the retired idle-host path, kept for loaded-host
-    evidence) are skipped once past it so the production/host lines always
-    emit within budget."""
+    seeding pass measurements are skipped once past it so the
+    production/host lines always emit within budget."""
     t_start = time.monotonic()
-    import jax
+    from bossruns_tpu.utils.compile_cache import configure_compile_cache
 
-    jax.config.update("jax_compilation_cache_dir",
-                      str(Path(__file__).resolve().parent.parent / ".jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    configure_compile_cache()
 
     from bossruns_tpu.aligner import TpuAligner
     from bossruns_tpu.aligner.cpu_baseline import CpuAligner
@@ -70,7 +67,7 @@ def main(n_reads: int = 2000, trials: int = 3, deadline_s: float | None = None):
     from bossruns_tpu.aligner import make_aligner
 
     cpu = CpuAligner(lay, k=13, w=5, min_votes=3, threads=4)
-    tpu = TpuAligner(lay, k=13, w=5, min_votes=3)
+    dev = TpuAligner(lay, k=13, w=5, min_votes=3)
     # what production call sites actually run (make_aligner auto dispatch:
     # host seeding, 8 workers, at this scale) — measured against the
     # 4-thread reference-parity baseline
@@ -93,16 +90,15 @@ def main(n_reads: int = 2000, trials: int = 3, deadline_s: float | None = None):
             print(json.dumps({
                 "metric": f"aligner_{label}_device_skipped", "value": None,
                 "unit": None, "vs_baseline": None,
-                "detail": {"reason": "section budget spent (pool congestion);"
+                "detail": {"reason": "section budget spent;"
                                      " production line already emitted"},
             }), flush=True)
             continue
-        # isolate device-path failures: a congested pool can reset the TPU
-        # session mid-call (FAILED_PRECONDITION) — report and keep going so
-        # the production/host lines already emitted (and the other pass's
+        # isolate device-path failures: report and keep going so the
+        # production/host lines already emitted (and the other pass's
         # attempt) survive
         try:
-            cpu_sec, tpu_sec, rec = _time_pair(cpu, tpu, seqs, kw, trials)
+            cpu_sec, dev_sec, rec = _time_pair(cpu, dev, seqs, kw, trials)
         except Exception as e:  # noqa: BLE001
             print(json.dumps({
                 "metric": f"aligner_{label}_device_error", "value": None,
@@ -117,11 +113,11 @@ def main(n_reads: int = 2000, trials: int = 3, deadline_s: float | None = None):
         )
         print(json.dumps({
             "metric": f"aligner_{label}_reads_per_s",
-            "value": round(n_reads / tpu_sec, 1),
+            "value": round(n_reads / dev_sec, 1),
             "unit": "reads/s",
-            "vs_baseline": round(cpu_sec / tpu_sec, 2),
+            "vs_baseline": round(cpu_sec / dev_sec, 2),
             "detail": {
-                "seconds": round(tpu_sec, 2),
+                "seconds": round(dev_sec, 2),
                 "cpu_baseline_reads_per_s": round(n_reads / cpu_sec, 1),
                 "cpu_baseline_threads": 4,
                 "mapped_frac": round(mapped / n_reads, 4),
@@ -129,10 +125,7 @@ def main(n_reads: int = 2000, trials: int = 3, deadline_s: float | None = None):
                 "records": len(rec.qname),
                 # this line measures the DEVICE seeding path; production
                 # call sites dispatch via aligner.make_aligner, which picks
-                # the host path at this scale (byte-identical records; see
-                # docs/DESIGN.md "aligner backend" for the measured
-                # host-vs-device analysis incl. 134 Mb and loaded-host
-                # regimes)
+                # the host path at this scale (byte-identical records)
                 "production_backend": "host (make_aligner auto)",
             },
         }), flush=True)

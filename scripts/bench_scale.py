@@ -21,12 +21,18 @@ CCL = np.array([30000, 20000, 14000, 10000, 7000, 5000, 3500, 2200, 1200, 400])
 N_READS = 4000
 
 
-def one_size(total_mb: float) -> dict:
-    import jax
+def scale_inputs(total_mb: float, align_chunks: int = 1, hotspots: int = 0,
+                 hot_len: int = 250_000):
+    """Random haploid two-contig layout of total_mb Mb plus one 4000-read
+    batch of 3 kb reads with 5% errors, as (layout, ReadBatch of numpy).
 
-    from bossruns_tpu.io.coo_native import split_runs
+    hotspots > 0 starts the reads inside that many evenly spaced windows of
+    hot_len sites (instead of uniformly), so a few repeated steps switch
+    buckets on and run the threshold scan; windows that start on a shard
+    boundary put benefit windows across it."""
+    from bossruns_tpu.io.coo_native import pad_split, split_runs
     from bossruns_tpu.models.layout import build_layout
-    from bossruns_tpu.models.runs import ReadBatch, RunsEngine
+    from bossruns_tpu.models.runs import ReadBatch
 
     rng = np.random.default_rng(13)
     total = int(total_mb * 1e6)
@@ -34,18 +40,19 @@ def one_size(total_mb: float) -> dict:
         "cA": rng.integers(0, 4, total // 2).astype(np.uint8),
         "cB": rng.integers(0, 4, total - total // 2).astype(np.uint8),
     }
-    layout = build_layout(contigs)
-    eng = RunsEngine(layout)
-    state = eng.init_state()
+    layout = build_layout(contigs, align_chunks=align_chunks)
 
     rl = 3000
-    rstart = rng.integers(0, layout.G_pad - rl, N_READS).astype(np.int64)
+    if hotspots:
+        stride = layout.G_pad // hotspots
+        rstart = (rng.integers(0, hotspots, N_READS) * stride
+                  + rng.integers(0, hot_len - rl, N_READS)).astype(np.int64)
+    else:
+        rstart = rng.integers(0, layout.G_pad - rl, N_READS).astype(np.int64)
     pos = (rstart[:, None] + np.arange(rl)[None, :]).ravel()
     sym = layout.seq_int[pos].astype(np.int8)
     flip = rng.random(sym.shape[0]) < 0.05
     sym[flip] = rng.integers(0, 5, int(flip.sum()))
-    from bossruns_tpu.io.coo_native import pad_split
-
     padded = pad_split(split_runs(
         layout, sym, np.full(sym.shape[0], 40, np.int8), rstart,
         np.full(N_READS, rl, np.int32), np.zeros(N_READS, np.int32),
@@ -56,6 +63,17 @@ def one_size(total_mb: float) -> dict:
         rs_w=np.ones(N_READS, np.float32),
         **padded,
     )
+    return layout, batch
+
+
+def one_size(total_mb: float) -> dict:
+    import jax
+
+    from bossruns_tpu.models.runs import RunsEngine
+
+    layout, batch = scale_inputs(total_mb)
+    eng = RunsEngine(layout)
+    state = eng.init_state()
     batch = jax.device_put(batch)
     params = eng.make_params(CCL, 5300.0)
     state, aux = eng.step(state, batch, params)  # compile
@@ -71,16 +89,16 @@ def one_size(total_mb: float) -> dict:
         "value": round(float(np.median(times)) * 1000.0, 1),
         "unit": "ms",
         "vs_baseline": None,
-        "detail": {"genome_sites": total, "reads_per_batch": N_READS},
+        "detail": {"genome_sites": int(layout.lengths.sum()), "reads_per_batch": N_READS},
     }
 
 
 def main(sizes_mb):
     import jax
 
-    jax.config.update("jax_compilation_cache_dir",
-                      str(Path(__file__).resolve().parent.parent / ".jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from bossruns_tpu.utils.compile_cache import configure_compile_cache
+
+    configure_compile_cache()
     jax.config.update("jax_enable_x64", True)
     for mb in sizes_mb:
         try:

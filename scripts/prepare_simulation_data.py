@@ -8,7 +8,7 @@ and a big fastq, produce
     <out>/full.paf            alignments of full-length reads
     <out>/trunc.paf           alignments of the first mu bases of each read
     <paf>.offsets.npz         per-read PAF line offsets
-using the TPU aligner instead of minimap2 subprocesses.
+using the in-repo aligner instead of minimap2 subprocesses.
 
 Usage: python scripts/prepare_simulation_data.py --ref ref.fa --fq reads.fq
            [--out DIR] [--mu 400] [--batch 2000]

@@ -1,7 +1,7 @@
-"""Measure contig_strategies backends on the real chip: device (stacked
-gather kernel) vs host (vectorised f64) vs the reference-equivalent f64
-sequential-loop numpy baseline, at mock-community (8 Mb) and metagenome
-(40 Mb) pool scales. Sets HOST_MAX_CHUNKS honestly."""
+"""Measure contig_strategies backends: device (fused kernel) vs host
+(vectorised f64) vs the reference-equivalent f64 sequential-loop numpy
+baseline, at mock-community (8 Mb), metagenome (40 Mb) and 128 Mb pool
+scales — the measurement behind aeons/benefit.py HOST_MAX_CHUNKS."""
 import sys
 import time
 from pathlib import Path
@@ -11,9 +11,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import numpy as np
 import jax
 
-jax.config.update("jax_compilation_cache_dir",
-                  str(Path(__file__).resolve().parents[1] / ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from bossruns_tpu.utils.compile_cache import configure_compile_cache
+
+configure_compile_cache()
 jax.config.update("jax_enable_x64", True)
 
 from bossruns_tpu.aeons.benefit import contig_strategies

@@ -388,7 +388,7 @@ def test_multiline_containment_feeds_increment():
 
 def test_aeons_sim_crash_resume(tmp_path, monkeypatch):
     """Kill the sim mid-run, resume from the checkpoint, and converge to the
-    same contigs/strategy as an uninterrupted run (VERDICT round-1 item 5)."""
+    same contigs/strategy as an uninterrupted run."""
     from bossruns_tpu.aeons.simulation import BossAeonsSim
     from bossruns_tpu.utils.datagen import write_corpus
 
@@ -450,7 +450,7 @@ def test_aeons_sim_crash_resume(tmp_path, monkeypatch):
 
 def test_ultralong_overlap_single_unfragmented_dovetail():
     """100 kb ultralong reads at ~10% error incl. drift-heavy asymmetric
-    indels (VERDICT r4 #7): ONE overlap record per true overlap, covering
+    indels: ONE overlap record per true overlap, covering
     (nearly) the whole shared region, classifying as a proper dovetail —
     what the reference gets from minimap2's chaining
     (/root/reference/boss/aeons/sequences.py:538-563). Root-caused in round

@@ -1,4 +1,4 @@
-"""TPU aligner: index/seeding/extension accuracy on ground-truth reads."""
+"""Aligner: index/seeding/extension accuracy on ground-truth reads."""
 import numpy as np
 import pytest
 
@@ -275,3 +275,26 @@ def test_index_disk_cache_roundtrip(tmp_path, rng):
     lay2 = build_layout({"c1": fasta.read_text().splitlines()[1]}, min_len=1_000)
     d = load_or_build_index(lay2.seq_int, lay2.site_valid(), str(fasta))
     assert not np.array_equal(d.keys, a.keys) or not np.array_equal(d.positions, a.positions)
+
+
+@pytest.mark.parametrize("seeding", ["device", "host"])
+def test_all_extensions_failed_yields_no_records(world, monkeypatch, seeding):
+    """A bucket in which every banded-DP job fails (empty CIGARs) maps to no
+    records; record assembly must not index the empty CIGAR array."""
+    from bossruns_tpu.aligner import native
+    from bossruns_tpu.aligner.cpu_baseline import CpuAligner
+
+    _genome, reads, lay, al = world
+    if seeding == "host":
+        al = CpuAligner(lay)
+
+    def all_failed(queries_cat, q_off, *args, **kwargs):
+        n = q_off.shape[0] - 1
+        return (np.full(n, -1, np.int32), np.zeros(n, np.int64),
+                np.zeros(n, np.int64), [np.zeros(0, np.uint32)] * n)
+
+    monkeypatch.setattr(native, "align_batch", all_failed)
+    seqs = {r.rid: r.seq for r in reads[:40]}
+    for kw in (dict(trunc=True), dict()):
+        rec = al.map_sequences(seqs, **kw)
+        assert len(rec.qname) == 0 and rec.cigars == []

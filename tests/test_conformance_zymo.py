@@ -1,6 +1,6 @@
 """Zymo-scale conformance: engine (quirk mode) vs the reference pipelines.
 
-VERDICT r3 missing #1: decision-level parity evidence on a realistic-scale
+Decision-level parity evidence on a realistic-scale
 surrogate of the reference's conformance corpus (zymo.fa — 9 contigs,
 largest ~4 Mb; the data submodule is empty in this snapshot). The committed
 generator (bossruns_tpu/conformance.py, frozen seed) drives batches of
@@ -35,7 +35,7 @@ def test_small_scale_agreement_exercises_decisions():
     assert out["any_on"], "bucket switches never flipped"
     assert out["exact_vs_drift_free"], out["exact_batches"]
     assert out["min_agreement"] >= 0.995, out
-    # POSITIVE residual attribution (VERDICT r4 #6): every engine-vs-quirk
+    # POSITIVE residual attribution: every engine-vs-quirk
     # disagreement falls inside the predicted Q3/Q3b drift set OR the
     # f32-vs-f64 score-precision set — ZERO cells unexplained
     assert out["residual_unexplained"] == 0, out
@@ -66,7 +66,7 @@ def test_zymo_scale_agreement():
 
 @pytest.mark.parametrize("variant", ["haploid", "diploid", "barcoded"])
 def test_dataplane_conformance_variants(variant, tmp_path):
-    """Conformance through the REAL data plane (VERDICT r4 #2): the
+    """Conformance through the REAL data plane: the
     production BossRunsSim (sample -> decide -> CIGAR -> device coverage ->
     mask) vs the quirk oracle fed from the same decided PAF records via the
     independent NumPy expansion. Coverage must be BIT-EXACT per contig and

@@ -1,6 +1,7 @@
 """Window sums, threshold scan and fhat kernels vs the f64 oracle."""
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from bossruns_tpu import oracle
 from bossruns_tpu.ops import genome_ops as gops
@@ -50,21 +51,49 @@ def test_expected_benefit_matches_oracle(rng):
     np.testing.assert_allclose(np.asarray(ben_j)[0], ben_o, rtol=1e-8, atol=1e-12)
 
 
-def test_frexp_abs_exponent_matches_numpy(rng):
-    vals = np.concatenate([
+def _pow2_ulps(dtype, ks):
+    p = np.asarray([2.0**k for k in ks], dtype)
+    return np.concatenate([p, np.nextafter(p, dtype(0)), np.nextafter(p, dtype(np.inf))])
+
+
+_FREXP_CASES = {
+    "random": lambda rng: np.concatenate([
         rng.random(1000),
         2.0 ** rng.integers(-40, 1, 200).astype(np.float64),  # exact powers of 2
         np.array([1.0, 0.5, 0.25, 2.0**-30]),
-    ])
+    ]),
+    # bin edges: a log2-based exponent rounds these into the wrong bin
+    "pow2_ulps": lambda rng: _pow2_ulps(np.float64, [0, -1, -2, -30, -126, -127, -189, -190, -191]),
+    # below f32's normal range: f32 subnormals, held as f64 values
+    "f32_subnormal_range": lambda rng: np.array(
+        [2.0**-127, 2.0**-140, 2.0**-149, 1e-40, 1.17e-38], np.float64),
+    # f64 subnormals go to the top bin, as numpy's |exponent| clamps them
+    "f64_subnormal": lambda rng: np.array(
+        [5e-324, 2.0**-1074, 2.0**-1030, np.nextafter(2.0**-1022, 0.0), 2.0**-1022]),
+    "tiny": lambda rng: np.array([2.0**-190, 2.0**-190 * 1.5, 2.0**-191, 1e-300]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_FREXP_CASES))
+def test_frexp_abs_exponent_matches_numpy(rng, case):
+    vals = _FREXP_CASES[case](rng)
     _, e_np = np.frexp(vals)
     expect = np.minimum(np.abs(e_np), 191)
     got = np.asarray(gops.frexp_abs_exponent(jnp.asarray(vals, jnp.float64), 192))
     np.testing.assert_array_equal(got, expect)
-    # f32 path
+    # f32 path over the values that are f32 normals (f32 subnormals go to
+    # the top bin by contract)
     v32 = vals.astype(np.float32)
+    v32 = v32[v32 >= np.finfo(np.float32).tiny]
     _, e32 = np.frexp(v32)
     got32 = np.asarray(gops.frexp_abs_exponent(jnp.asarray(v32), 192))
     np.testing.assert_array_equal(got32, np.minimum(np.abs(e32), 191))
+
+
+def test_frexp_abs_exponent_f32_subnormal_top_bin():
+    v = np.array([1e-40, 2.0**-149, np.nextafter(np.finfo(np.float32).tiny, 0)], np.float32)
+    got = np.asarray(gops.frexp_abs_exponent(jnp.asarray(v), 192))
+    np.testing.assert_array_equal(got, 191)
 
 
 def test_find_strategy_matches_oracle(rng):

@@ -81,7 +81,7 @@ def test_empty_inputs():
 
 def test_cpu_aligner_matches_tpu_records(corpus_small):
     """CpuAligner (host seeding + native DP) emits byte-identical records to
-    TpuAligner — they share candidate planning and extension, and seeding is
+    TpuAligner (device seeding) — they share candidate planning and extension, and seeding is
     pinned identical above."""
     from bossruns_tpu.aligner import TpuAligner
     from bossruns_tpu.aligner.cpu_baseline import CpuAligner
@@ -95,10 +95,10 @@ def test_cpu_aligner_matches_tpu_records(corpus_small):
     lay = build_layout({"g": base})
     sim = simulate_reads(rng, genome, 120, mean_len=1200.0, sd_len=500.0)
     seqs = {r.rid: r.seq for r in sim}
-    tpu = TpuAligner(lay, k=15, w=10, min_votes=4)
+    dev = TpuAligner(lay, k=15, w=10, min_votes=4)
     cpu = CpuAligner(lay, k=15, w=10, min_votes=4)
     for kw in (dict(trunc=True), dict()):
-        rt = tpu.map_sequences(seqs, **kw)
+        rt = dev.map_sequences(seqs, **kw)
         rc = cpu.map_sequences(seqs, **kw)
         assert list(rt.qname) == list(rc.qname)
         for f in ("qstart", "qend", "rev", "tstart", "tend", "nmatch",

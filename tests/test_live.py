@@ -159,3 +159,20 @@ def test_live_checkpoint_resume(corpus, tmp_path, monkeypatch):
     # no new files: deferred, coverage unchanged
     assert exp2.process_batch() == args.general.wait
     assert np.asarray(exp2.state.coverage).sum() == cov_before
+
+
+def test_readfish_child_runs_on_cpu(monkeypatch):
+    """The readfish_boss child never opens the accelerator the engine
+    process holds: its environment pins JAX to the CPU backend."""
+    monkeypatch.setenv("JAX_PLATFORMS", "cuda")
+    cmd, env = LiveRun.readfish_command("rf.toml", "MS00001", "boss")
+    assert cmd[1].endswith("readfish_boss.py") and cmd[2:] == ["rf.toml", "MS00001", "boss"]
+    assert env["JAX_PLATFORMS"] == "cpu"
+    assert env["PATH"] == __import__("os").environ["PATH"]  # rest inherited
+
+
+def test_launch_readfish_dry_run_starts_nothing(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(LiveRun, "search_running_process", staticmethod(lambda kw: None))
+    assert LiveRun.launch_readfish("rf.toml", "MS00001", "boss", dry=True) is None
+    assert LiveRun.launch_readfish("rf.toml", "TEST", "boss") is None

@@ -91,11 +91,11 @@ def test_clip_at_990(rng):
 
 def test_score_matmuls_pin_highest_precision():
     """Every dot_general in the scoring closed form must carry HIGHEST
-    precision. TPU matmuls otherwise truncate f32 inputs to bf16 — losing
-    counts > 256 and ~3 digits of log_phi — which the strategy feedback loop
-    amplified into a divergent accept-all trajectory in a 42-batch soak run.
-    CPU computes true f32 either way, so only this jaxpr check catches a
-    regression off-hardware."""
+    precision. A default-precision f32 matmul may run in TF32 on the GPU
+    (~3 decimal digits of log_phi), and reduced-precision scores were seen
+    to drive the strategy feedback loop into a divergent accept-all
+    trajectory in a 42-batch soak run. CPU computes true f32 either way, so
+    only this jaxpr check catches a regression off-hardware."""
     import jax
     import jax.numpy as jnp
 

@@ -61,7 +61,7 @@ def test_sharded_matches_single_chip(rng):
     np.testing.assert_array_equal(np.asarray(st_s.coverage), np.asarray(st_1.coverage))
     np.testing.assert_array_equal(np.asarray(st_s.bucket_on), np.asarray(st_1.bucket_on))
     # f64 benefit sums of f32 scores are reassociation-exact, so sharding must
-    # not change a single decision (VERDICT r1 item 3: sharded == single)
+    # not change a single decision
     np.testing.assert_array_equal(np.asarray(st_s.strat), np.asarray(st_1.strat))
     assert bool(aux_s.any_on) == bool(aux_1.any_on)
 

@@ -64,6 +64,43 @@ def test_config_region_name_must_match(tmp_path, monkeypatch):
 def test_config_template_roundtrip(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     Config.write_template(tmp_path / "t.toml")
+    text = (tmp_path / "t.toml").read_text()
+    assert "[tpu]" in text and "batchsize = 4000" in text
+    assert "# Number of reads per update" in text
     conf = Config(parse=True, argv=["--toml", str(tmp_path / "t.toml")])
     assert conf.args.optional.ploidy == 1
     assert conf.args.simulation.batchsize == 4000
+    assert conf.args.general.ref is None
+
+
+def test_config_reads_typed_values(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    toml = tmp_path / "boss.toml"
+    toml.write_text(
+        '[general]\nname = "x"\nbarcodes = ["barcode01", "barcode02"]\n'
+        '[optional]\ntetra = false\nploidy = 2\n[tpu]\nmesh_genome = 4\n'
+    )
+    args = Config(parse=True, argv=["--toml", str(toml)]).args
+    assert args.general.barcodes == ["barcode01", "barcode02"]
+    assert args.optional.tetra is False and args.optional.ploidy == 2
+    assert args.tpu.mesh_genome == 4 and args.tpu.mesh_barcode == 1
+    assert args.simulation.batchsize == 4000  # untouched sections keep defaults
+
+
+@pytest.mark.parametrize("body, message", [
+    ('[general]\nnmae = "x"\n', "unknown key 'nmae'"),
+    ('[genral]\nname = "x"\n', "unknown section"),
+    ('[simulation]\nbatchsize = "4000"\n', "batchsize"),
+    ('[optional]\nploidy = true\n', "ploidy"),
+    ('[general]\nbarcodes = ["barcode01", 2]\n', "barcodes"),
+    ('[optional]\ntetra = 1\n', "tetra"),
+])
+def test_config_rejects_invalid_toml(tmp_path, monkeypatch, capsys, body, message):
+    monkeypatch.chdir(tmp_path)
+    toml = tmp_path / "boss.toml"
+    toml.write_text(body)
+    with pytest.raises(SystemExit) as exc:
+        Config(parse=True, argv=["--toml", str(toml)])
+    assert exc.value.code == 1
+    out = capsys.readouterr().out
+    assert "Invalid configuration" in out and message in out

@@ -1,7 +1,7 @@
 """Reference-quirk (bug-compatible) mode: engine Q1 parity, the full
 bug-compatible oracle vs committed golden masks, and the Q2 data-plane quirk.
 
-VERDICT r2 item 3: BASELINE's parity clause is "bit-identical strategy
+BASELINE's parity clause is "bit-identical strategy
 decisions vs the reference"; the default pipeline deliberately fixes three
 reference defects (docs/PARITY.md deviations 1-3), so this suite pins a mode
 that reproduces them: RunsConfig(reference_quirks=True) (Q1 on device),

@@ -1,7 +1,7 @@
 """Genome-scale proof: multi-10-Mb to >=100 Mb diploid layouts through the
 sharded engine.
 
-VERDICT r1 item 6 / r2 item 4: BASELINE config 3 targets diploid chromosome
+BASELINE config 3 targets diploid chromosome
 scale, and the scale evidence must be driver-visible. Two tiers:
 
 * test_30mb_sharded_two_batches — IN THE DEFAULT SUITE: a 30 Mb diploid
